@@ -38,9 +38,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from cammiq_tpu.utils.jitcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     import bench as benchmod
     from cammiq_tpu.config import FineParams

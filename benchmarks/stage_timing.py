@@ -37,10 +37,9 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     from bench import build_bench_index, sample_read_batch
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from cammiq_tpu.utils.jitcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from cammiq_tpu.query.sortjoin import (
         _HHI_BITS, _first_of_run_scan, _hash_prefix, build_merged_index,
@@ -126,8 +125,7 @@ def main():
         is_start = jnp.concatenate(
             [jnp.ones(1, bool), (sw1[1:] != sw1[:-1]) | (srun[1:] != srun[:-1])])
         has_tab = jnp.where(is_start, (stag == 0).astype(jnp.int32), 0)
-        # pallas scan kernel deleted in round 4 (see sortjoin.py decision
-        # note + benchmarks/pallas_repro.py); the XLA scan is the design
+        # the first-of-run propagation is XLA's associative scan
         pbid, ptab = _first_of_run_scan(is_start, sval, has_tab)
         probe_hit = (stag == 1) & (ptab > 0)
         return p16s, sval, pbid, probe_hit

@@ -21,10 +21,9 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     from bench import build_bench_index, sample_read_batch
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from cammiq_tpu.utils.jitcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from cammiq_tpu.query.sortjoin import (
         build_merged_index, make_sortjoin_classifier, to_device_merged,
@@ -63,13 +62,13 @@ def main():
     with gzip.open(path, "rt") as f:
         trace = json.load(f)
     events = trace.get("traceEvents", [])
-    # find TPU device track pids (device compute lanes)
+    # device track pids (device compute lanes)
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
     dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "/device" in n.lower() or "Device" in n}
+                if "/device" in n.lower() or "Device" in n}
     tot = {}
     cnt = {}
     total_dur = 0.0

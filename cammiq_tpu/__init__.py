@@ -1,4 +1,4 @@
-"""CAMMiQ-TPU: a TPU-native metagenomic identification and quantification engine.
+"""CAMMiQ-TPU: a JAX/XLA metagenomic identification and quantification engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of CAMMiQ
 (reference: algo-cancer/CAMMiQ, bioRxiv 10.1101/2020.06.12.149245):

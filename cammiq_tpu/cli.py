@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -265,7 +266,16 @@ def run_build(a: dict) -> None:
         shutil.rmtree(wd, ignore_errors=True)
 
 
-def run_query(a: dict) -> None:
+def run_query(a: dict) -> list:
+    """Classify and solve every query file; returns the QueryCounts of
+    each file in order."""
+    from .utils.timing import CompileMeter
+
+    with CompileMeter() as meter:
+        return _run_query(a, meter)
+
+
+def _run_query(a: dict, meter) -> list:
     from .index.table import load_flat_index_pair
     from .io.fastq import list_fastq_dir, read_fastq
     from .io.mapfile import load_genome_lengths, load_smap
@@ -278,6 +288,7 @@ def run_query(a: dict) -> None:
         _err("Please specify index files (-i).")
     from .index.artifact import is_merged_artifact, load_merged_artifact
 
+    t_start = time.perf_counter()
     artifact = None
     if is_merged_artifact(a["fi_u"]):
         # -i MERGED_DIR: precomputed merged-index artifact - lazy memmap
@@ -315,7 +326,7 @@ def run_query(a: dict) -> None:
         engine = "sortjoin"
     # -t N at query time = N-way device parallelism over the 'data' mesh
     # axis (the reference's -t sets OpenMP threads, src/main.cpp:358-359;
-    # devices are the TPU-native parallelism unit); --model_shards M
+    # here devices are the unit of parallelism); --model_shards M
     # additionally shards the index over the 'model' axis
     mesh = None
     if a["t"] > 1 or a["model_shards"] > 1:
@@ -340,6 +351,9 @@ def run_query(a: dict) -> None:
     else:
         sess = QuerySession(index_u, index_d, G, qcfg, engine=engine,
                             mesh=mesh)
+    sess.wait_ready()
+    print(f"Time for session start: "
+          f"{(time.perf_counter() - t_start) * 1e3:.0f} ms.", file=sys.stderr)
 
     files = a["fq_names"] or (list_fastq_dir(a["fq_dir"]) if a["fq_dir"] else [])
     if not files:
@@ -352,10 +366,16 @@ def run_query(a: dict) -> None:
 
     prof = device_trace(a.get("profile") or None)
     prof.__enter__()
+    results = []
     for fi, path in enumerate(files):
         reads = read_fastq(path, min_len=a["min_rl"])
         sc = a["id_mode"] > 0
+        c0, h0 = meter.seconds, meter.cache_hits
         counts = sess.run(reads, sc_mode=sc, verbose=True)
+        results.append(counts)
+        print(f"Time for compiling: {(meter.seconds - c0) * 1e3:.0f} ms "
+              f"({meter.cache_hits - h0} persistent-cache hits).",
+              file=sys.stderr)
         print(f"Number of unlabeled reads: {counts.nundet}.", file=sys.stderr)
         print(f"Number of reads with conflict labels: {counts.nconf}.", file=sys.stderr)
         name = os.path.basename(path)
@@ -393,6 +413,7 @@ def run_query(a: dict) -> None:
                 outmod.write_counts_row(f, name, redist, table.n_species)
         mode = "a"
     prof.__exit__(None, None, None)
+    return results
 
 
 def main(argv: Optional[List[str]] = None) -> None:

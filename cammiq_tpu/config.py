@@ -129,7 +129,7 @@ class QueryConfig:
     id_mode: int = 0                # 0=quant, 1=--read_cnts, 2=--read_cnts --doubly_unique
     fine: FineParams = dataclasses.field(default_factory=FineParams)
     ident: IdentFineParams = dataclasses.field(default_factory=IdentFineParams)
-    batch_size: int = 65536         # reads per device batch (TPU-side knob)
+    batch_size: int = 65536         # reads per device batch; not yet tuned on the H100
     max_read_len: int = 256         # packed batch width (reference max_rl: src/query.hpp:34)
 
     def __post_init__(self):
@@ -150,7 +150,7 @@ class MeshConfig:
     data:  number of data-parallel groups (read batches sharded).
     model: number of index shards (hash-table entries partitioned).
     The reference has no distributed layer (pthreads/OpenMP only,
-    SURVEY.md section 2); this is the TPU-native first-class equivalent.
+    SURVEY.md section 2); this is the device-mesh equivalent.
     """
 
     data: int = 1

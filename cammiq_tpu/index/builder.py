@@ -114,6 +114,11 @@ def build_index(
 
     sweeps = engine == "native" and native.has_sweeps()
     bounded = sweeps and cfg.bounded_sa and native.has_bsort()
+    if verbose:
+        print(f"Build engine: {engine}"
+              f"{' (C++ sweeps)' if sweeps else ''}"
+              f"{' (bounded suffix sort)' if bounded else ''}.",
+              file=sys.stderr)
     # the reference computes the SA over n + sentinels but keeps ranks of
     # the n real suffixes only (divsufsort over n chars; src/build.cpp:286)
     with stage_timer("computing suffix array", timings, verbose):

@@ -14,7 +14,7 @@ Format (reference src/hashtrie.cpp:595-699, src/binaryio.cpp):
   in INT.
 
 This allows a user of the reference to load their existing indexes into
-the TPU engine, and exports our indexes for the reference binary.
+this engine, and exports our indexes for the reference binary.
 """
 
 from __future__ import annotations

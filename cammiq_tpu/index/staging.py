@@ -2,7 +2,7 @@
 
 The reference trades RAM for disk by spilling SA/GSA/LCP to temp files
 between stages (gsa.bin / sa0.bin / lcp.bin, src/gsa.cpp:88-137,193-237,
-810-820).  The TPU build's equivalent: a BuildStage directory of memmapped
+810-820).  This build's equivalent: a BuildStage directory of memmapped
 arrays, making every pipeline stage resumable - kill the build after the
 suffix array and it continues from the LCP stage.
 """

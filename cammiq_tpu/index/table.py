@@ -1,8 +1,8 @@
 """Flat, vectorizable index table (replaces the reference's pointer tries).
 
 The reference stores selected substrings in a robin-hood hash map of 4-ary
-tries (src/hashtrie.{hpp,cpp}).  Pointer-chasing is hostile to TPUs, so the
-TPU-native layout is fully flat:
+tries (src/hashtrie.{hpp,cpp}).  Pointer-chasing is hostile to
+accelerators, so the device layout is fully flat:
 
 - every substring is packed 2-bit into KW uint32 words (base t at bits
   [2(t%16)] of word t//16), plus a length;

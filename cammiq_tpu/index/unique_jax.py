@@ -3,7 +3,7 @@
 Same operational semantics as the host-numpy engine (which is validated
 against the reference transcription); everything here is jittable with
 static shapes, so the whole unique/doubly extraction pipeline runs on the
-TPU: O(n log max_run) segmented scans + a bounded while_loop for the OCC
+device: O(n log max_run) segmented scans + a bounded while_loop for the OCC
 neighbor counts.
 """
 

@@ -4,7 +4,7 @@ Reference: FqReader::readFastq (src/query.cpp:371-445): every 4-line
 record's sequence, N replaced by a random base, optional min-length filter,
 lengths as uint8 (max 255), total length tracked for the mean read length.
 
-TPU-side representation: a ReadBatch of 2-bit codes [B, Lpad] int8 with
+Device-side representation: a ReadBatch of 2-bit codes [B, Lpad] int8 with
 per-read lengths [B]; the reverse-complement strand is derived on device.
 """
 

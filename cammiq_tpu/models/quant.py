@@ -29,6 +29,7 @@ constraints - fully jittable, runs on device.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 import time
 from typing import Optional, Tuple
 
@@ -260,7 +261,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
                 enum_iters: int = 400, bnb_cap: int = 64,
                 bnb_nodes: int = 2048,
                 verbose: bool = False) -> Tuple[np.ndarray, np.ndarray, dict]:
-    """Solve the reference MIQP (src/query.cpp:1082-1298) TPU-natively.
+    """Solve the reference MIQP (src/query.cpp:1082-1298) on the device.
 
     Three stages, all on device:
     1. relaxed box-QP (the (0, 0.01) EXIST hole removed) by FISTA projected
@@ -270,7 +271,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
        src/query.cpp:1260; CLI: --ilp_time_limit);
     2. branch over the EXIST booleans: candidates whose lower bound does
        not already force EXIST=1 are enumerated in vmapped batches of
-       2**enum_cap subset QPs - the TPU-parallel replacement for CPLEX
+       2**enum_cap subset QPs - the data-parallel replacement for CPLEX
        branch-and-bound.  With more than enum_cap free candidates the
        enumeration window is re-centered on the most ambiguous undecided
        candidates and repeated until the in/out decisions are stable and
@@ -293,6 +294,9 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
     import jax
     import jax.numpy as jnp
 
+    # float32 dots at full precision: the GPU may otherwise run them in
+    # TF32 (about three decimal digits)
+    dot = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
     t0 = time.perf_counter()
     n = prob.n
     if not prob.exist0.any():
@@ -351,7 +355,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         (src/query.cpp:1234-1237) handled this way converges far faster
         than a slow-multiplier AL on a near-binding constraint."""
         x = jnp.clip(y, lbv, ubv)
-        viol = jnp.dot(tg, x) - prob.total_rhs
+        viol = dot(tg, x) - prob.total_rhs
 
         def proj_mu(mu):
             return jnp.clip(y - mu * tg, lbv, ubv)
@@ -364,7 +368,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         def body(i, ab):
             a, b = ab
             m = 0.5 * (a + b)
-            f = jnp.dot(tg, proj_mu(m)) - prob.total_rhs
+            f = dot(tg, proj_mu(m)) - prob.total_rhs
             return jnp.where(f > 0, m, a), jnp.where(f > 0, b, m)
 
         a, b = jax.lax.fori_loop(0, 60, body, (jnp.asarray(0.0), hi))
@@ -417,7 +421,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
             # gradient-based adaptive restart (O'Donoghue & Candes):
             # kill the momentum when it points against the descent step,
             # which prevents FISTA's rippling under box clipping
-            restart = jnp.dot(g, xn - x) > 0
+            restart = dot(g, xn - x) > 0
             tn = jnp.where(restart, 1.0,
                            0.5 * (1 + jnp.sqrt(1 + 4 * tprev * tprev)))
             yn = project(xn + (tprev - 1) / tn * (xn - x), lbv, ubv)
@@ -496,7 +500,7 @@ def solve_quant(prob: QuantProblem, iters: int = 2000, outer: int = 6,
         """objective + exact penalty on relative constraint violation
         beyond `knee` (the oracle counts <=1e-6 relative as feasible)."""
         obj = objective(xs)
-        rv_tot = jnp.maximum(jnp.dot(tg, xs) - prob.total_rhs, 0.0) / max(
+        rv_tot = jnp.maximum(dot(tg, xs) - prob.total_rhs, 0.0) / max(
             prob.total_rhs, 1.0
         )
         pen = 1e12 * jnp.maximum(rv_tot - knee, 0.0)

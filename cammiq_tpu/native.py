@@ -2,7 +2,8 @@
 
 The native library provides the production host-side engines:
 - SA-IS suffix array (replaces the reference's external libdivsufsort,
-  src/gsa.cpp:20-37) with OpenMP;
+  src/gsa.cpp:20-37); the loops parallelise on std::thread
+  (native/par.h), so no OpenMP runtime is needed;
 - Kasai LCP with per-thread carry (src/gsa.cpp:145-167);
 - fast FASTQ batch parsing.
 
@@ -33,14 +34,20 @@ def _ensure_built() -> None:
     if os.path.exists(so) or not os.path.exists(os.path.join(src_dir, "Makefile")):
         return
     import subprocess
+    import sys
 
     try:
-        subprocess.run(
+        r = subprocess.run(
             ["make", "-C", src_dir, "-j"],
-            check=False, capture_output=True, timeout=300,
+            check=False, capture_output=True, text=True, timeout=300,
         )
-    except (OSError, subprocess.TimeoutExpired):
-        pass
+    except (OSError, subprocess.TimeoutExpired) as e:
+        print(f"native: building {so} failed ({e}); falling back to the "
+              f"numpy engines", file=sys.stderr)
+        return
+    if r.returncode != 0:
+        print(f"native: `make -C {src_dir}` exited {r.returncode}; falling "
+              f"back to the numpy engines.\n{r.stderr}", file=sys.stderr)
 
 
 def _load():

@@ -5,7 +5,7 @@ with three interchangeable engines:
 
 - `suffix_array_numpy`:   prefix-doubling with numpy argsort (host fallback,
                           O(N log^2 N), used for tests and small corpora).
-- `suffix_array_jax`:     the TPU-native engine - prefix doubling with
+- `suffix_array_jax`:     the device engine - prefix doubling with
                           `jax.lax.sort` over (rank, next-rank, index)
                           triples; fully on-device, static shapes, int32.
 - native SA-IS (C++):     see native/sais.cpp + cammiq_tpu/native.py, the
@@ -70,10 +70,10 @@ def suffix_array_jax(s, max_rounds: int | None = None):
     """On-device prefix-doubling suffix array.
 
     s: jnp uint8/int32 array [n] (n < 2**31).  Returns int32 [n] suffix
-    array.  Each doubling round is one multi-operand `lax.sort` (radix on
-    TPU) plus O(n) elementwise ops; rounds = ceil(log2 n) (early-exit via
-    cond on rank saturation is deliberately avoided to keep the trace
-    static; saturated rounds are cheap no-ops numerically).
+    array.  Each doubling round is one multi-operand `lax.sort` plus O(n)
+    elementwise ops; rounds = ceil(log2 n) (early-exit via cond on rank
+    saturation is deliberately avoided to keep the trace static; saturated
+    rounds are cheap no-ops numerically).
     """
     import jax
     import jax.numpy as jnp

@@ -2,7 +2,7 @@
 exact bounded-key merge (SURVEY §7 hard part (a)).
 
 The single-host build bounded-sorts the whole concatenation in one
-OpenMP pass (native/bsort.cpp).  At the reference's corpus cap
+threaded pass (native/bsort.cpp).  At the reference's corpus cap
 (maxN = 2^36 bytes, src/util.hpp:13) no single host holds the text, so
 the sort must shard:
 

@@ -1,6 +1,6 @@
 """Distributed query: data-parallel reads x model-parallel index shards.
 
-The TPU-native replacement for the reference's OpenMP read loop with
+The device-mesh replacement for the reference's OpenMP read loop with
 omp-critical counter updates (src/query.cpp:650-889):
 
 - reads are sharded over the 'data' mesh axis;
@@ -508,9 +508,9 @@ class DistSortJoinSession:
                 # case analysis runs on the all_gathered matches) — a
                 # per-batch E-sized psum here measured 9x the batch cost
                 # on the virtual mesh (benchmarks/dist_perf.py) and would
-                # move ~250 MB/batch over ICI at the 61M-entry index; the
-                # caller accumulates the sharded partials and reduces
-                # ONCE per query pass
+                # move ~250 MB/batch between devices at the 61M-entry
+                # index; the caller accumulates the sharded partials and
+                # reduces ONCE per query pass
                 rcu = rcounts_from_case(case, 0, max(eu, 1))[None, :]
                 rcd = rcounts_from_case(case, eu, max(ed, 1))[None, :]
             else:

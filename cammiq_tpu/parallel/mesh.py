@@ -1,13 +1,17 @@
 """Device-mesh construction.
 
 The reference is single-node shared-memory (pthreads + OpenMP,
-SURVEY.md section 2); the TPU-native equivalents are:
+SURVEY.md section 2); the device-mesh equivalents are:
 - 'data' axis: read batches sharded data-parallel (the OpenMP
   parallel-for over reads, src/query.cpp:664, without the omp-critical
   bottleneck - counts merge via psum instead);
 - 'model' axis: the flat hash index sharded (memory scaling for
   20K-genome databases), probes evaluated against local shards and match
-  slots all_gathered over ICI.
+  slots all_gathered across the shards.
+
+The mesh is a plain reshape of the device list: the cards of one host
+reach each other all to all at one rate, so only the algorithm decides
+the layout.
 """
 
 from __future__ import annotations
@@ -36,16 +40,9 @@ def make_mesh(data: int = -1, model: int = 1, devices: Optional[Sequence] = None
 
 
 def shard_map_fn(mesh, fn, in_specs, out_specs):
-    """Version-tolerant shard_map wrapper (replication checking off: the
-    count outputs are made replicated by explicit psum)."""
+    """shard_map with replication checking off: the count outputs are made
+    replicated by explicit psum."""
     import jax
 
-    sm = getattr(jax, "shard_map", None)
-    if sm is None:
-        from jax.experimental.shard_map import shard_map as sm
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw)
-        except TypeError:
-            continue
-    raise RuntimeError("no usable shard_map signature")
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)

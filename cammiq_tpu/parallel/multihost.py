@@ -1,12 +1,12 @@
 """Multi-host orchestration.
 
-The reference has no distributed layer; the TPU-native recipe
-(SURVEY.md section 5.8) is:
+The reference has no distributed layer; the recipe here (SURVEY.md
+section 5.8) is:
 - `jax.distributed.initialize()` across hosts;
 - a global ('data', 'model') mesh spanning all hosts' devices, with the
-  'data' axis preferentially crossing DCN (read batches are embarrassingly
-  parallel) and 'model' staying intra-slice on ICI (match-slot all_gather
-  rides the fast interconnect);
+  'data' axis preferentially crossing hosts (read batches are
+  embarrassingly parallel) and 'model' staying within a host, whose cards
+  are joined all to all (the match-slot all_gather rides the fast link);
 - each host streams its own slice of the read files and feeds
   per-host global arrays via `jax.make_array_from_process_local_data`;
 - count partials merge with psum inside the jitted step, so no host ever
@@ -45,7 +45,7 @@ def initialize_cluster(coordinator: Optional[str] = None,
 
 def make_global_mesh(model: int = 1):
     """('data', 'model') mesh over all processes' devices; 'model' is kept
-    within a process (ICI) when it divides the local device count."""
+    within a process when it divides the local device count."""
     import jax
     from jax.sharding import Mesh
 

@@ -56,11 +56,11 @@ class QuerySession:
         mesh=None,
     ):
         """engine: 'gather' (baseline per-position probe) or 'sortjoin'
-        (lax.sort merge join; fastest on TPU).
+        (lax.sort merge join; the product engine).
 
         mesh: optional ('data', 'model') jax Mesh - classification runs
         distributed (reads sharded over 'data', the merged index over
-        'model', counts psum-merged; the TPU-native replacement for the
+        'model', counts psum-merged; the device-mesh replacement for the
         reference's OpenMP read loop, src/query.cpp:650-889)."""
         import jax
 
@@ -187,6 +187,16 @@ class QuerySession:
                               sc_mode=sc_mode)
         z = jnp.zeros((), jnp.int32)
         return out, z, z
+
+    def wait_ready(self) -> None:
+        """Block until the index arrays this session holds have reached
+        the device (host-to-device copies are asynchronous)."""
+        import jax
+
+        held = [getattr(self, n, None) for n in ("_dm", "didx_u", "didx_d")]
+        jax.block_until_ready([v for h in held if h is not None
+                               for v in vars(h).values()
+                               if isinstance(v, jax.Array)])
 
     def _dist_session(self, sc_mode: bool):
         from ..parallel.dist_query import DistSortJoinSession

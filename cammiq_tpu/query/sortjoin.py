@@ -1,9 +1,8 @@
 """Sort-join probe: the hot loop restructured around lax.sort.
 
 The baseline probe (probe.py) does O(max_probes + max_bucket * kw) random
-gathers per (read, offset, strand, table) - gathers are the slowest
-primitive on TPU.  This engine replaces the hash-table lookup with a
-sort-merge join, TPU's fastest primitive:
+gathers per (read, offset, strand, table).  This engine replaces the
+hash-table lookup with a sort-merge join over fixed-shape batches:
 
 1. both tables' entries are merged host-side into one bucket list keyed by
    a 41-bit HASH of the h-base prefix; every entry additionally gets a
@@ -21,9 +20,7 @@ sort-merge join, TPU's fastest primitive:
    strategies (join='auto' picks by regime):
    - PRODUCTION (NB > 4N, 'bloom'): one blocked-bloom gather per probe
      (no false negatives) filters the ~99% non-matching probes; the
-     survivors compact to K and a directory binary search runs on K
-     rows only.  This is the r4 redesign that took the production index
-     from 102K to 773K reads/s/chip (see PERF.md);
+     survivors compact to K and the span lookup runs on K rows only;
    - 'dir': directory + binary search at full N (the r3 design, kept as
      an equality-tested fallback);
    - small-index ('sort'): probe hashes and bucket hashes sorted
@@ -89,10 +86,9 @@ class MergedIndex:
 
 
 # directory cells (4 MB of int32 at the cap); ~NB/2^20 rows per cell.
-# Measured (r4, stage_cuts at production NB): raising the cap to 24 bits
-# (64 MB table, 7->5 search rounds) made the search stage 3.5x SLOWER —
-# per-element gather cost into the larger operand dwarfs the two saved
-# rounds on this chip.  Keep the directory small.
+# Any value is exact.  20 was chosen by timing on the previous
+# accelerator (a 24-bit directory searched slower there); not yet
+# measured on the H100.
 DIR_BITS = 20
 
 # blocked bloom filter cap: 2^26 uint32 words (256 MB) keeps the load at
@@ -143,10 +139,11 @@ def _bloom_bits(key, xp):
     )
 
 
-# device-side bloom cap when the exact cuckoo stage follows: a 64 MB
-# filter gathers ~1.7x faster than 128-512 MB operands on this chip
-# (benchmarks/gather_scaling.py), and its higher FP rate at 60M+ keys
-# only costs recompaction slots, not wrong results
+# device-side bloom cap when the exact cuckoo stage follows.  Folding
+# adds no false negatives, and its higher FP rate at 60M+ keys only
+# costs recompaction slots, not wrong results.  24 (64 MB) was chosen by
+# timing on the previous accelerator; not yet measured on the H100
+# (benchmarks/gather_scaling.py measures the gather-cost curve)
 BLOOM_DEVICE_LOG = 24
 
 
@@ -194,9 +191,7 @@ def _build_directory(pref_lo: np.ndarray, db: int | None = None):
 # ---- cuckoo span table: the large-index search stage without dependent
 # gathers.  The bloom path's remaining dependent chain was dir_span_steps
 # (7-8) binary-search rounds gathering pref_lo[mid] from an NB-sized
-# operand; measured on this chip (benchmarks/gather_scaling.py) that
-# chain costs ~2.7 ms at K=19.2K while TWO independent [12]-word row
-# gathers cost ~0.5 ms even into multi-GB operands.  So the artifact
+# operand, where TWO independent row gathers suffice.  So the artifact
 # precomputes a 2-choice, 4-slot-per-bucket hash table mapping each
 # DISTINCT 32-bit bucket hash to its entry span: row layout
 # [k0..k3, s0..s3, c0..c3] (keys, span starts, span counts), empty slots
@@ -359,11 +354,10 @@ def _cuckoo_kv_from_table(tab: np.ndarray) -> np.ndarray:
     content, and a full content match implies an equal h-prefix hash,
     i.e. the entry is in the probe's own bucket — so scanning a fixed
     max_bucket entries from the span start can never produce a
-    cross-bucket match, and the count mask is redundant there.  Measured
-    motivation (benchmarks via /tmp repro, r5): column slices of a
-    gathered row fuse INTO the gather and split it — 3 slices of the
-    12-word row cost ~1.6 ms/side at K=77K vs ~1.1 ms for 2 slices of
-    an 8-word row; the count columns buy nothing the verify does not."""
+    cross-bucket match, and the count mask is redundant there.  Column
+    slices of a gathered row fuse into the gather and split it, so a
+    narrower row with fewer slices is the cheaper layout; the count
+    columns buy nothing the verify does not."""
     S = CUCKOO_SLOTS
     keys = tab[:, 0:S]
     starts = tab[:, S:2 * S]
@@ -402,9 +396,10 @@ _HHI_BITS = 9  # secondary-hash width stored per bucket row
 # independent of max_bucket
 BUCKET_SCAN_UNROLL = 8
 # found-slot strategy: n_colors <= this uses per-color vector selects in
-# the unrolled scan (the per-round [K, NC+1] scatter costs like a
-# K-sized gather per round); above it, the single-scatter form keeps
-# program size independent of n_colors
+# the unrolled scan instead of a per-round [K, NC+1] scatter; above it,
+# the single-scatter form keeps program size independent of n_colors.
+# Both cutovers are exact either way and were chosen by timing on the
+# previous accelerator; not yet measured on the H100.
 COLOR_SELECT_UNROLL = 4
 
 
@@ -879,7 +874,7 @@ def collect_matches_sortjoin(
 
     # probe words laid out [B*O, kw]: the kw verify words of every
     # (read, offset) candidate become ONE contiguous row-gather later
-    # (scalar gathers are ~10ns each on TPU; rows amortize)
+    # instead of kw scalar gathers
     p16s = jnp.stack([window_word(w) for w in range(kw)], axis=-1)
     p16s = p16s.reshape(-1, kw)
     W0 = p16s[:, 0].reshape(B, O)
@@ -966,11 +961,9 @@ def collect_matches_sortjoin(
             # cost one K1 slot + one cheap row-gather, nothing more.
             # Survivors sort by SPAN START, not probe order: the later
             # erec/prec row-gathers then walk the big operands
-            # quasi-sequentially.  Measured NEUTRAL on this chip's
-            # gather issue when uncontended (and it saves one K1-sized
-            # gather: the sorted key IS cstart), but locality can only
-            # help on HBM-bandwidth-bound backends; candidate order is
-            # free since collect re-sorts by (read, gid)
+            # quasi-sequentially (and it saves one K1-sized gather: the
+            # sorted key IS cstart); candidate order is free since
+            # collect re-sorts by (read, gid)
             rows1 = jnp.arange(K1, dtype=jnp.int32)
             fkey2 = jnp.where(real, cstart_k, BIGOFF)
             skey2, sslot = jax.lax.sort([fkey2, rows1], num_keys=1,
@@ -1084,14 +1077,9 @@ def collect_matches_sortjoin(
              (sw1[1:] != sw1[:-1]) | (srun[1:] != srun[:-1])]
         )
         # first-of-run is the table row iff the bucket exists (tag first).
-        # Design decision (round 4): the first-of-run propagation is the
-        # XLA associative scan, full stop.  A pallas single-pass kernel
-        # existed through round 3 but (a) never completed on this backend
-        # even standalone (benchmarks/pallas_repro.py is the minimal
-        # repro) and (b) the production path no longer contains a large
-        # scan at all — the bloom-prefiltered directory join replaced the
-        # sort join at production NB, and the remaining scans are
-        # K-sized.  The kernel was deleted rather than shipped dormant.
+        # The propagation is XLA's associative scan: the production
+        # (bloom) path runs only K-sized scans, so a hand-written kernel
+        # waits for a device trace that shows this scan costs.
         has_tab = jnp.where(is_start, (stag == 0).astype(jnp.int32), 0)
         pbid, ptab = _first_of_run_scan(is_start, sval, has_tab)
         probe_hit = (stag == 1) & (ptab > 0)
@@ -1173,11 +1161,9 @@ def collect_matches_sortjoin(
 
     if dm.max_bucket <= BUCKET_SCAN_UNROLL and NC <= COLOR_SELECT_UNROLL:
         # small buckets, few colors: masked c-step sweep with per-color
-        # VECTOR selects — the per-round [K, NC+1] scatter was the
-        # dominant bucket-stage cost (a K-sized scatter costs like a
-        # K-sized gather; the 4 erec row-gathers alone measure ~1.1 ms
-        # while the full stage measured 3.8), and at NC <= 4 a chain of
-        # wheres is pure fused elementwise work
+        # VECTOR selects instead of a per-round [K, NC+1] scatter (a
+        # K-sized scatter costs like a K-sized gather); at NC <= 4 a
+        # chain of wheres is pure fused elementwise work
         fcols = [jnp.full((K,), -1, jnp.int32) for _ in range(NC)]
         for c in range(dm.max_bucket):
             e = jnp.minimum(cstart + c, Emax - 1)
@@ -1247,7 +1233,7 @@ def collect_matches_sortjoin(
     # ---- match compaction: most of the [K, NC] found slots are empty
     # (avg matched colors per candidate ~1 and only ~hit-rate of K are
     # candidates at all), and the payload row-gather hits the multi-GB
-    # prec operand where per-row cost is ~30 ns — so compact found slots
+    # prec operand — so compact found slots
     # to KP first with one cheap 1-key sort, then gather payloads for KP
     # rows only.  KP = K + K//4 covers every candidate matching one color
     # plus slack for multi-color matches; beyond that is an overflow
@@ -1312,9 +1298,9 @@ def collect_matches_sortjoin(
 
 def make_sortjoin_classifier(dm: DeviceMergedIndex, num_genome_slots: int,
                              hit_capacity_frac: int = 32, maxm: int = 32):
-    """Two-jit classifier: (collect+case) and (rcounts) compile separately
-    - the fused single program both compiles slower and runs slower on
-    the TPU backend here.
+    """Two-jit classifier: (collect+case) and (rcounts) compile separately.
+    The split was chosen on the previous accelerator, where the fused
+    single program compiled and ran slower; not yet measured on the H100.
 
     Returns classify(codes, lengths, with_rcounts, sc_mode, uniform_len)
     -> (BatchCounts, overflow_hits, overflow_slots).

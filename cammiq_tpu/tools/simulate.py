@@ -46,8 +46,31 @@ def read_fasta_contigs(path: str, min_len: int) -> List[bytes]:
     return out
 
 
+_COMP_TABLE = bytes(COMP.get(b, b) for b in range(256))
+
+
 def rc(read: bytes) -> bytes:
-    return bytes(COMP.get(b, b) for b in reversed(read))
+    return bytes(read)[::-1].translate(_COMP_TABLE)
+
+
+def add_errors(read: bytearray, rng, erate: float,
+               nrate: float = 0.0) -> List[Tuple[int, str, str]]:
+    """Substitute bases at rate erate, then write Ns at rate nrate, in
+    place; returns the substitutions as (position, from, to).  One
+    uniform draw per base in base order, per pass: the same stream as a
+    draw per loop step."""
+    errs = []
+    draws = rng.random(len(read))
+    for pos in np.flatnonzero(draws < erate).tolist():
+        e = float(draws[pos])
+        orig = chr(read[pos])
+        sub = SUBS.get(orig, "ACG")[int(3 * e / erate) % 3]
+        errs.append((pos, orig, sub))
+        read[pos] = ord(sub)
+    if nrate > 0:
+        for pos in np.flatnonzero(rng.random(len(read)) < nrate).tolist():
+            read[pos] = ord("N")
+    return errs
 
 
 def simulate(
@@ -131,7 +154,7 @@ def simulate(
                     read = bytearray(contig[ri : ri + Lr])
                     # resample if non-ACGT present
                     tries = 0
-                    while any(b not in (65, 67, 71, 84) for b in read) and tries < 100:
+                    while bytes(read).translate(None, b"ACGT") and tries < 100:
                         ri = int(rng.integers(0, len(contig) - Lr + 1))
                         read = bytearray(contig[ri : ri + Lr])
                         tries += 1
@@ -139,18 +162,7 @@ def simulate(
                     if rng.random() >= 0.5:
                         read = bytearray(rc(bytes(read)))
                         rc_flag = 1
-                    errs = []
-                    for l in range(Lr):
-                        e = rng.random()
-                        if e < erate:
-                            orig = chr(read[l])
-                            sub = SUBS.get(orig, "ACG")[int(3 * e / erate) % 3]
-                            errs.append((l, orig, sub))
-                            read[l] = ord(sub)
-                    if nrate > 0:
-                        for l in range(Lr):
-                            if rng.random() < nrate:
-                                read[l] = ord("N")
+                    errs = add_errors(read, rng, erate, nrate)
                     hdr = f"@{sp_map[fn]} c{ci} r{j} rpos{ri} rc{rc_flag} "
                     hdr += "".join(f"e{l} {o}:{s} " for l, o, s in errs)
                     fp.write(hdr + "\n")

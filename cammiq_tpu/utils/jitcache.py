@@ -1,35 +1,35 @@
-"""Persistent XLA compilation cache for CLI sessions.
+"""Persistent XLA compilation cache for CLI sessions and scripts.
 
-A fresh query session on an already-seen index shape pays the full
-remote compile (~40 s at the 1000-genome shape, minutes at 60M+
-entries) unless the persistent cache is on; with it, the executable
-reloads in seconds.  bench.py and benchmarks/ always enable it; the CLI
-calls this at startup.
+A fresh query session on an already-seen index shape pays the full XLA
+compile unless the persistent cache is on; with it, the executable
+reloads from disk.  The CLI, bench.py, chip_smoke.py and benchmarks/
+call `enable_persistent_cache()` at startup.
 
-Env: CAMMIQ_JIT_CACHE=<dir> overrides the location, CAMMIQ_JIT_CACHE=0
-disables.
+Where the cache lives: JAX itself reads `JAX_COMPILATION_CACHE_DIR`, so
+when that is set nothing here overrides it.  Otherwise the cache goes to
+`<checkout>/.jax_cache` (gitignored): a fixed path, because the path is
+part of the cache key.
 """
 
 from __future__ import annotations
 
 import os
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
-def enable_persistent_cache() -> str | None:
-    loc = os.environ.get("CAMMIQ_JIT_CACHE", "")
-    if loc == "0":
-        return None
-    if not loc:
-        loc = os.path.join(
-            os.environ.get("XDG_CACHE_HOME",
-                           os.path.join(os.path.expanduser("~"), ".cache")),
-            "cammiq_tpu", "jax")
-    try:
-        os.makedirs(loc, exist_ok=True)
-        import jax
 
-        jax.config.update("jax_compilation_cache_dir", loc)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        return None
-    return loc
+def cache_dir() -> str:
+    """The directory the persistent cache uses in this process."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(REPO_ROOT, ".jax_cache"))
+
+
+def enable_persistent_cache() -> str:
+    """Turn the persistent compilation cache on; returns its directory."""
+    import jax
+
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", cache_dir())
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    return cache_dir()

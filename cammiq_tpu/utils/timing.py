@@ -40,6 +40,40 @@ class Timings:
 
 GLOBAL_TIMINGS = Timings()
 
+BACKEND_COMPILE_EVENT = "/jax/core/compile/backend_compile_duration"
+CACHE_HIT_EVENT = "/jax/compilation_cache/cache_hits"
+
+
+class CompileMeter:
+    """Sums XLA backend-compile seconds (a persistent-cache load counts
+    as its retrieval time) and persistent-cache hits recorded in this
+    process while the meter is entered, from JAX's monitoring events."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.cache_hits = 0
+
+    def _on_duration(self, event: str, duration: float, **_) -> None:
+        if event == BACKEND_COMPILE_EVENT:
+            self.seconds += duration
+
+    def _on_event(self, event: str, **_) -> None:
+        if event == CACHE_HIT_EVENT:
+            self.cache_hits += 1
+
+    def __enter__(self) -> "CompileMeter":
+        import jax.monitoring as mon
+
+        mon.register_event_duration_secs_listener(self._on_duration)
+        mon.register_event_listener(self._on_event)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import jax.monitoring as mon
+
+        mon.unregister_event_duration_listener(self._on_duration)
+        mon.unregister_event_listener(self._on_event)
+
 
 @contextlib.contextmanager
 def stage_timer(stage: str, timings: Timings | None = None, verbose: bool = False):

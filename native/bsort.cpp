@@ -38,9 +38,7 @@
 #include <cstring>
 #include <vector>
 
-#ifdef _OPENMP
-#include <omp.h>
-#endif
+#include "par.h"
 
 namespace {
 
@@ -215,23 +213,13 @@ int cammiq_bounded_sa(const uint8_t* s, int64_t n, int64_t depth,
   if (n == 0) return 0;
   const Luts luts = make_luts();
 
-  int nt = 1;
-#ifdef _OPENMP
-  nt = omp_get_max_threads();
-#endif
+  const int nt = par::num_threads();
   // per-thread bucket histograms (thread-major), then an exclusive scan
   // in bucket-major, thread-minor order gives disjoint scatter cursors
   std::vector<int64_t> hist((size_t)nt * kNumBuckets, 0);
   std::vector<uint8_t> bucket_misc(kNumBuckets, 0);
 
-#ifdef _OPENMP
-#pragma omp parallel num_threads(nt)
-#endif
-  {
-    int t = 0;
-#ifdef _OPENMP
-    t = omp_get_thread_num();
-#endif
+  par::region(nt, [&](int t, int) {
     int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
     int64_t* h = hist.data() + (size_t)t * kNumBuckets;
     for (int64_t i = lo; i < hi; ++i) {
@@ -240,7 +228,7 @@ int cammiq_bounded_sa(const uint8_t* s, int64_t n, int64_t depth,
       h[b]++;
       if (misc) bucket_misc[b] = 1;  // benign race: only ever set to 1
     }
-  }
+  });
 
   // exclusive scan -> per-(bucket, thread) start offsets; also record
   // per-bucket [start, end) for the sorting pass
@@ -258,14 +246,7 @@ int cammiq_bounded_sa(const uint8_t* s, int64_t n, int64_t depth,
     bstart[kNumBuckets] = acc;
   }
 
-#ifdef _OPENMP
-#pragma omp parallel num_threads(nt)
-#endif
-  {
-    int t = 0;
-#ifdef _OPENMP
-    t = omp_get_thread_num();
-#endif
+  par::region(nt, [&](int t, int) {
     int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
     int64_t* cur = hist.data() + (size_t)t * kNumBuckets;
     for (int64_t i = lo; i < hi; ++i) {
@@ -273,19 +254,16 @@ int cammiq_bounded_sa(const uint8_t* s, int64_t n, int64_t depth,
       uint32_t b = bucket_key(s, n, i, luts, &misc);
       sa[cur[b]++] = i;
     }
-  }
+  });
 
   // per-bucket bounded sort.  Pure buckets share their first 12 bytes by
   // construction; buckets containing an escaped suffix start at depth 0.
-#ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic, 256)
-#endif
-  for (int64_t b = 0; b < kNumBuckets; ++b) {
+  par::for_dynamic(0, kNumBuckets, 256, [&](int64_t b) {
     int64_t m = bstart[b + 1] - bstart[b];
-    if (m <= 1) continue;
+    if (m <= 1) return;
     int64_t d0 = bucket_misc[b] ? 0 : kPrefixBases;
     mkqs(s, n, sa + bstart[b], m, d0, depth);
-  }
+  });
   return 0;
 }
 
@@ -299,10 +277,7 @@ void cammiq_bounded_lcp_u16(const uint8_t* s, int64_t n, const int64_t* sa,
   if (cap > 0xFFFF) cap = 0xFFFF;
   lcp[0] = 0;
   lcp[n] = 0;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-  for (int64_t r = 1; r < n; ++r) {
+  par::for_static(1, n, [&](int64_t r) {
     int64_t a = sa[r - 1], b = sa[r];
     int64_t lim = std::min(cap, std::min(n - a, n - b));
     int64_t h = 0;
@@ -317,14 +292,13 @@ void cammiq_bounded_lcp_u16(const uint8_t* s, int64_t n, const int64_t* sa,
         while (s[a + h] == s[b + h]) ++h;
 #endif
         lcp[r] = (uint16_t)h;
-        goto next;
+        return;
       }
       h += 8;
     }
     while (h < lim && s[a + h] == s[b + h]) ++h;
     lcp[r] = (uint16_t)h;
-  next:;
-  }
+  });
 }
 
 }  // extern "C"

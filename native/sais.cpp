@@ -15,9 +15,7 @@
 #include <cstring>
 #include <vector>
 
-#ifdef _OPENMP
-#include <omp.h>
-#endif
+#include "par.h"
 
 namespace {
 
@@ -188,18 +186,12 @@ void cammiq_kasai(const uint8_t* s, const int64_t* sa, int64_t* lcp,
                   int64_t n, int64_t clamp) {
   if (n <= 0) return;
   std::vector<int64_t> rank(n);
-#ifdef _OPENMP
-#pragma omp parallel for
-#endif
-  for (int64_t i = 0; i < n; ++i) rank[sa[i]] = i;
+  par::for_static(0, n, [&](int64_t i) { rank[sa[i]] = i; });
 
   // Kasai with per-thread carry (the reference runs the same loop with an
   // OpenMP firstprivate carry, src/gsa.cpp:150-160; the carry self-heals
   // within a few iterations of each thread's range).
-#ifdef _OPENMP
-#pragma omp parallel
-  {
-    int tn = omp_get_thread_num(), nt = omp_get_num_threads();
+  par::region(par::num_threads(), [&](int tn, int nt) {
     int64_t lo = n * tn / nt, hi = n * (tn + 1) / nt;
     int64_t h = 0;
     for (int64_t i = lo; i < hi; ++i) {
@@ -210,18 +202,7 @@ void cammiq_kasai(const uint8_t* s, const int64_t* sa, int64_t* lcp,
       lcp[k] = h >= clamp ? clamp : h;
       if (h > 0) --h;
     }
-  }
-#else
-  int64_t h = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t k = rank[i];
-    if (k == 0) { h = 0; continue; }
-    int64_t j = sa[k - 1];
-    while (i + h < n && j + h < n && s[i + h] == s[j + h]) ++h;
-    lcp[k] = h >= clamp ? clamp : h;
-    if (h > 0) --h;
-  }
-#endif
+  });
   lcp[0] = 0;
   lcp[n] = 0;
 }

@@ -24,9 +24,7 @@
 #include <cstring>
 #include <vector>
 
-#ifdef _OPENMP
-#include <omp.h>
-#endif
+#include "par.h"
 
 namespace {
 
@@ -40,14 +38,8 @@ void cammiq_kasai_u16(const uint8_t* s, const int64_t* sa, uint16_t* lcp,
                       int64_t n) {
   if (n <= 0) return;
   std::vector<int64_t> rank(n);
-#ifdef _OPENMP
-#pragma omp parallel for
-#endif
-  for (int64_t i = 0; i < n; ++i) rank[sa[i]] = i;
-#ifdef _OPENMP
-#pragma omp parallel
-  {
-    int tn = omp_get_thread_num(), nt = omp_get_num_threads();
+  par::for_static(0, n, [&](int64_t i) { rank[sa[i]] = i; });
+  par::region(par::num_threads(), [&](int tn, int nt) {
     int64_t lo = n * tn / nt, hi = n * (tn + 1) / nt;
     int64_t h = 0;
     for (int64_t i = lo; i < hi; ++i) {
@@ -58,18 +50,7 @@ void cammiq_kasai_u16(const uint8_t* s, const int64_t* sa, uint16_t* lcp,
       lcp[k] = (uint16_t)(h >= 0xFFFF ? 0xFFFF : h);
       if (h > 0) --h;
     }
-  }
-#else
-  int64_t h = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t k = rank[i];
-    if (k == 0) { h = 0; continue; }
-    int64_t j = sa[k - 1];
-    while (i + h < n && j + h < n && s[i + h] == s[j + h]) ++h;
-    lcp[k] = (uint16_t)(h >= 0xFFFF ? 0xFFFF : h);
-    if (h > 0) --h;
-  }
-#endif
+  });
   lcp[0] = 0;
   lcp[n] = 0;
 }
@@ -79,10 +60,7 @@ void cammiq_kasai_u16(const uint8_t* s, const int64_t* sa, uint16_t* lcp,
 void cammiq_gsa32(const int64_t* sa, const int64_t* ref_pos,
                   const int32_t* ref_id, int64_t m, int32_t* gsa,
                   int64_t n) {
-#ifdef _OPENMP
-#pragma omp parallel for
-#endif
-  for (int64_t i = 0; i < n; ++i) {
+  par::for_static(0, n, [&](int64_t i) {
     int64_t lo = 0, hi = m;  // first j with sa[i] < ref_pos[j]
     while (lo < hi) {
       int64_t mid = (lo + hi) >> 1;
@@ -90,7 +68,7 @@ void cammiq_gsa32(const int64_t* sa, const int64_t* ref_pos,
       else hi = mid;
     }
     gsa[i] = (lo < m) ? ref_id[lo] : ref_id[m - 1];
-  }
+  });
 }
 
 // LCP0[i] per unique_lcp0 (unique.py:90-109): first run = max(el, A);
@@ -209,10 +187,7 @@ void cammiq_doubly_lcp0(const int64_t* sa, const int32_t* gsa,
 void cammiq_occ_unique(const int64_t* sa, const int32_t* gsa,
                        const uint16_t* lcp, const int32_t* lcp0, int64_t n,
                        int wrap, uint8_t* occ) {
-#ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic, 4096)
-#endif
-  for (int64_t i = 0; i < n; ++i) {
+  par::for_dynamic(0, n, 4096, [&](int64_t i) {
     int64_t cnt = 1;
     // upward: neighbors i+d while same genome and min(LCP[i+1..i+d]) > LCP0
     int32_t run = INT32_MAX;
@@ -232,7 +207,7 @@ void cammiq_occ_unique(const int64_t* sa, const int32_t* gsa,
     }
     occ[sa[i]] = wrap ? (uint8_t)(cnt & 0xFF)
                       : (uint8_t)(cnt > 255 ? 255 : cnt);
-  }
+  });
 }
 
 // Pair occurrence counts (unique.py:occ_doubly; reference computeOCC16_d,
@@ -245,11 +220,8 @@ void cammiq_occ_doubly(const int64_t* sa, const int32_t* gsa,
   if (n == 0) return;
   int64_t end_excl = 0;  // top of the first run (gsa.cpp:625-626)
   while (end_excl + 1 < n && gsa[end_excl + 1] == gsa[0]) ++end_excl;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic, 4096)
-#endif
-  for (int64_t i = end_excl + 1; i < n; ++i) {
-    if (lcp0[i] > ulmax) continue;
+  par::for_dynamic(end_excl + 1, n, 4096, [&](int64_t i) {
+    if (lcp0[i] > ulmax) return;
     int64_t p = sa[i];
     int32_t g = gsa[i], g2 = gsa2_text[p];
     int64_t c1 = 1, c2 = 0;
@@ -279,7 +251,7 @@ void cammiq_occ_doubly(const int64_t* sa, const int32_t* gsa,
     }
     occ[p] = wrap ? (uint8_t)(c1 & 0xFF) : (uint8_t)(c1 > 255 ? 255 : c1);
     occ2[p] = wrap ? (uint8_t)(c2 & 0xFF) : (uint8_t)(c2 > 255 ? 255 : c2);
-  }
+  });
 }
 
 // MU[e] = min over ranks i with SA[i]+LCP0[i]+1 == e of LCP0[i]

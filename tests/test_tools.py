@@ -4,6 +4,8 @@ synthetic taxdump, assembly-summary parsing/dedup, and map emission."""
 
 import os
 
+import pytest
+
 from cammiq_tpu.tools import download as dl
 from cammiq_tpu.tools import preprocess as pp
 
@@ -132,3 +134,110 @@ def test_download_cli_no_fetch(tmp_path):
              "--no-fetch"])
     assert os.path.exists(mp)
     assert len(open(mp).read().splitlines()) == 2
+
+
+def _sim_db(tmp_path, rng):
+    """Three two-contig genomes, one with N runs, one with lowercase."""
+    import numpy as np
+
+    rows, seqs = [], {}
+    for i in range(3):
+        seq = bytearray(rng.choice(list(b"ACGT"), size=3000)
+                        .astype(np.uint8).tobytes())
+        if i == 0:
+            seq[500:520] = b"N" * 20
+        if i == 2:
+            seq[100:200] = bytes(seq[100:200]).lower()
+        fn = f"g{i}.fa"
+        (tmp_path / fn).write_bytes(b">c0\n" + bytes(seq[:1600]) + b"\n>c1\n"
+                                    + bytes(seq[1600:]) + b"\n")
+        seqs[str(i + 1)] = [bytes(seq[:1600]), bytes(seq[1600:])]
+        rows.append(f"{fn}\t{i + 1}\t{100 + i}\tn{i}\n")
+    (tmp_path / "map.out").write_text("".join(rows))
+    return seqs
+
+
+@pytest.mark.parametrize("erate,nrate,l_std",
+                         [(0.0, 0.0, 0.0), (0.05, 0.0, 0.0),
+                          (0.02, 0.01, 8.0)])
+def test_simulate_headers_describe_reads(tmp_path, erate, nrate, l_std):
+    """Every read is its contig slice at rpos (reverse-complemented when
+    rc1) with exactly the substitutions its header lists, plus Ns."""
+    import numpy as np
+
+    from cammiq_tpu.tools import simulate as sim
+
+    seqs = _sim_db(tmp_path, np.random.default_rng(1))
+    sim.simulate(str(tmp_path / "map.out"), str(tmp_path),
+                 str(tmp_path / "r.fq"), str(tmp_path / "t.out"),
+                 num_reads=400, erate=erate, nrate=nrate, L_std=l_std,
+                 seed=5)
+    lines = (tmp_path / "r.fq").read_text().splitlines()
+    n_err = 0
+    for hdr, read in zip(lines[0::4], lines[1::4]):
+        f = hdr[1:].split()
+        gid, ci, rpos = f[0], int(f[1][1:]), int(f[3][4:])
+        ref = seqs[gid][ci][rpos:rpos + len(read)]
+        assert ref.translate(None, b"ACGT") == b""
+        if f[4] == "rc1":
+            ref = sim.rc(ref)
+        want = bytearray(ref)
+        for pos, sub in zip(f[5::2], f[6::2]):
+            orig, new = sub.split(":")
+            p = int(pos[1:])
+            assert chr(want[p]) == orig and new != orig
+            want[p] = ord(new)
+            n_err += 1
+        got = read.encode()
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a == b or (nrate > 0 and a == ord("N"))
+    assert (n_err > 0) == (erate > 0)
+
+
+def test_simulate_rc_is_reverse_complement():
+    from cammiq_tpu.tools import simulate as sim
+
+    assert sim.rc(b"AACGTN") == b"NACGTT"
+    assert sim.rc(b"acgt") == b"ACGT"
+    assert sim.rc(sim.rc(b"GATTACA")) == b"GATTACA"
+
+
+def _add_errors_loop(read, rng, erate, nrate):
+    """The per-base loop add_errors replaced: the reference stream."""
+    from cammiq_tpu.tools.simulate import SUBS
+
+    errs = []
+    for pos in range(len(read)):
+        e = rng.random()
+        if e < erate:
+            orig = chr(read[pos])
+            sub = SUBS.get(orig, "ACG")[int(3 * e / erate) % 3]
+            errs.append((pos, orig, sub))
+            read[pos] = ord(sub)
+    if nrate > 0:
+        for pos in range(len(read)):
+            if rng.random() < nrate:
+                read[pos] = ord("N")
+    return errs
+
+
+@pytest.mark.parametrize("erate,nrate", [(0.0, 0.0), (0.01, 0.0),
+                                         (0.2, 0.05)])
+def test_add_errors_matches_per_base_loop(erate, nrate):
+    """Same reads, same substitutions and the same RNG state after, as a
+    draw per base."""
+    import numpy as np
+
+    from cammiq_tpu.tools.simulate import add_errors
+
+    src = np.random.default_rng(0)
+    for seed in range(50):
+        base = bytearray(src.choice(list(b"ACGT"), size=100)
+                         .astype(np.uint8).tobytes())
+        a, b = bytearray(base), bytearray(base)
+        ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+        assert add_errors(a, ra, erate, nrate) == _add_errors_loop(
+            b, rb, erate, nrate)
+        assert a == b
+        assert ra.random() == rb.random()
